@@ -95,7 +95,7 @@ class _CoupledStep:
         The recirculation transfer (buffer exit plane -> main ghost
         plane) crosses shards on a z-mesh: under jit-GSPMD the
         `.at[:, 0].set(fb2[:, -1])` below compiles to a collective
-        permute of one plane (the TPU-native form of the reference's
+        permute of one plane (the counterpart of the reference's
         one-way zmq connection, subdomain_connection.py:410)."""
         from sailfish_tpu.parallel import mesh as pmesh
         pmesh.validate_divisible(self.buf.maps.type_map.shape, mesh)
@@ -112,8 +112,7 @@ class _CoupledStep:
             # one-way transfer: post-collision exit plane -> ghost row.
             # This .at[].set is NOT the forbidden hot-loop copy: fm is
             # dead after it (single consumer), so XLA updates the loop
-            # carry in place -- measured ~0.2 ms/iter (one plane write)
-            # vs ~0.7 ms for a full 175 MB buffer copy on v5e.
+            # carry in place (one plane write, no full buffer copy)
             fm = fm.at[:, 0].set(fb2[:, -1])
             return (fb2, main_step(fm, it))
 

@@ -9,20 +9,13 @@ statistics are accumulated on-device every few iterations regardless of
 the output cadence.
 
 Scene counterpart of the reference's
-examples/turbulence/channel_flow.py; the statistics pipeline uses the
-TPU-native per-iteration device hooks instead of host after_step
-sampling.
+examples/turbulence/channel_flow.py; the statistics pipeline uses
+per-iteration device hooks instead of host after_step sampling.
 
-Geometry (chosen for the fused TPU kernel): wall-normal = y
-(sublane axis -- the walls take the kernel's y-row patch mode,
-ops/pallas_step.py patch_yrows, instead of pushing the scene onto the
-XLA engine), streamwise = x (periodic, the lane axis: the longest
-extent, 6H, amortizes the 128-lane tiling), spanwise = z (periodic), so
-a z-sharded mesh splits along a homogeneous direction. Tile-exact
-sizes (streamwise a multiple of 128 -- see --streamwise -- and
-wall-normal a multiple of 8: any H for bbl, H = 3 mod 4 for hbb/tms,
-whose location-0.5 walls add one node per side) run fused; others fall
-back to the XLA engine with a warning.
+Geometry: wall-normal = y, streamwise = x (periodic, the longest
+extent, 6H, contiguous in memory), spanwise = z (periodic), so a
+z-sharded mesh splits along a homogeneous direction. The hbb/tms walls
+have location 0.5 and add one node per side.
 """
 
 import math
@@ -145,8 +138,7 @@ class ChannelSim(LBFluidSim, LBForcedSim, ReynoldsStatsMixIn):
                                 '(utils/channel_make_rand_field.py)')
         group.add_argument('--streamwise', type=int, default=0,
                            help='streamwise length override (default '
-                                '6*H; multiples of 128 keep the scene '
-                                'on the fused kernel)')
+                                '6*H)')
 
     @classmethod
     def update_defaults(cls, defaults):

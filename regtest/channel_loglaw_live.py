@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Live short-channel law-of-the-wall gate (real-chip presubmit).
+"""Live short-channel law-of-the-wall gate (device presubmit).
 
 The full Re_tau=180 channel needs ~300k iterations to develop; its
 stats live as a stored artifact validated by channel_loglaw.py. That
@@ -11,14 +11,9 @@ TMS wall math, the Guo forcing or the Reynolds accumulator moves the
 profile far outside these bands within a few thousand steps (measured:
 a disabled TMS reconstruction drifts the wall slope >40% by 10k).
 
-Runs in about a minute on one chip: ~550k nodes x 20k iterations on
-the FUSED engine -- the wall rows (normal to y) take the kernel's
-y-row patch mode (ops/pallas_step.py patch_yrows), and the gate
-asserts the fused engine was actually selected. The streamwise
-length is overridden to 256 (a 128 multiple) to stay tile-exact,
-and H = 23 keeps the wall-normal extent 2H+2 = 48 a multiple of 8
-(the TMS wall is wet with location 0.5, so the scene adds one node
-per side).
+About 550k nodes x 20k iterations: H = 23 gives a wall-normal extent
+of 2H+2 = 48 (the TMS wall is wet with location 0.5, so the scene adds
+one node per side) and the streamwise length is overridden to 256.
 """
 
 import math
@@ -42,16 +37,11 @@ def main(H=23, iters=20000, tol_mean=0.15, tol_fric=0.25):
     from sailfish_tpu import util
     util.enable_compile_cache()
 
-    import jax
     ctrl = LBSimulationController(ChannelSim, LBGeometry3D,
                                   default_config=dict(
         H=H, wall='tms', Re_tau=180.0, max_iters=iters, every=iters,
         quiet=True, stats_every=20, streamwise=256))
     ctrl.run(ignore_cmdline=True)
-    if jax.default_backend() != 'cpu':
-        assert ctrl._runner.engine == 'pallas', \
-            'channel scene fell off the fused path: ' + \
-            repr(ctrl._runner.engine)
     sim = ctrl._runner.sim
     stats = sim.reynolds_stats()
     assert stats is not None, 'Reynolds accumulator produced nothing'

@@ -59,8 +59,7 @@ def run(n=64, visc=0.05, accel=2e-6, iters=6000):
     ctrl = LBSimulationController(Sim, LBGeometry3D, default_config=dict(
         lat_nx=n, lat_ny=n // 2, lat_nz=n // 2, visc=visc, grid='D3Q19',
         max_iters=iters, every=iters, quiet=True,
-        periodic_x=True, periodic_y=True, periodic_z=True,
-        engine='xla'))
+        periodic_x=True, periodic_y=True, periodic_z=True))
     ctrl.run(ignore_cmdline=True)
     r = ctrl._runner
     r.update_force_objects()

@@ -56,7 +56,7 @@ def build_runner():
 
     sim_cls = mod.LaplaceSim
     ctrl = LBSimulationController(sim_cls, default_config=dict(
-        max_iters=0, quiet=True, engine='xla'))
+        max_iters=0, quiet=True))
     defaults = {}
     sim_cls.update_defaults(defaults)
     defaults.update(ctrl._default_config)

@@ -1,26 +1,13 @@
 #!/usr/bin/env python
-"""Measured justification for the re-orientation guidance
-(doc/performance.md "BC placement"): complex-BC faces normal to x are
-the one orientation the fused 3D kernels do not patch -- the guidance
-is "orient such faces normal to z (or y)".  This probe demonstrates,
-with numbers, that following it costs nothing:
+"""Orientation invariance of boundary-condition faces.
 
-1. PHYSICS IS ORIENTATION-INVARIANT.  The pressure-driven 3D
-   Poiseuille pipe (examples/poiseuille_3d.py, NTEquilibriumDensity
-   inlet/outlet faces) is run with --flow_direction=x (faces normal to
-   x: XLA fallback) and --flow_direction=z (faces normal to z: fused-
-   eligible), both from the stationary analytic initialization.  The
-   deviation from the analytic profile after N steps is reported for
-   both -- the lattice is cubic-symmetric, so re-orienting a scene is
-   a flag/transpose away and changes nothing physical.
-
-2. ELIGIBILITY IS AS DOCUMENTED.  The z-faced build constructs the
-   fused kernel; the x-faced build raises the named patch blocker.
-
-Every shipped 3D example already ships fused-oriented (ldc_3d lid:
-z-face; channel_cube outlet: z-face; channel walls: y-rows;
-poiseuille_3d: this flag) -- there is no scene a user must slow down
-to run.
+The pressure-driven 3D Poiseuille pipe (examples/poiseuille_3d.py,
+NTEquilibriumDensity inlet/outlet faces) is run with --flow_direction=x
+(faces normal to x) and --flow_direction=z (faces normal to z), both
+from the stationary analytic initialization. The deviation from the
+analytic profile after N steps is reported for both, and the two
+axial-velocity fields are compared after a transpose: the lattice is
+cubic-symmetric, so re-orienting a scene changes nothing physical.
 
 Run:  python regtest/orientation_probe.py  [--iters 500]
 """
@@ -36,7 +23,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 
-def build(direction, n=32, engine='xla'):
+def build(direction, n=32):
     sys.path.insert(0, os.path.join(REPO, 'examples'))
     import importlib.util
     spec = importlib.util.spec_from_file_location(
@@ -52,8 +39,7 @@ def build(direction, n=32, engine='xla'):
     sim_cls = mod.PoiseuilleSim
     ctrl = LBSimulationController(sim_cls, default_config=dict(
         lat_nx=n, lat_ny=n, lat_nz=n, max_iters=0, quiet=True,
-        drive='pressure', stationary=True, flow_direction=direction,
-        engine=engine))
+        drive='pressure', stationary=True, flow_direction=direction))
     defaults = {}
     sim_cls.update_defaults(defaults)
     defaults.update(ctrl._default_config)
@@ -85,18 +71,6 @@ def profile_error(direction, iters, n=32):
     return abs(umax - max_v) / max_v, np.asarray(u)
 
 
-def eligibility(direction, n=32):
-    """Construct the fused kernel for this orientation; return
-    (ok, reason)."""
-    runner, _ = build(direction, n)
-    try:
-        runner.config.engine = 'pallas'
-        runner._init_state()
-        return True, runner.engine
-    except NotImplementedError as e:
-        return False, str(e)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--iters', type=int, default=500)
@@ -119,11 +93,6 @@ def main():
                        - fields['x'].transpose(2, 1, 0)).max())
     print(f'field-level orientation invariance: max |u_z(z,y,x) - '
           f'u_x(x,y,z)| = {d_t:.3e} (max_v = 0.02)')
-    ok_z, how_z = eligibility('z', args.n)
-    ok_x, how_x = eligibility('x', args.n)
-    print(f'fused eligibility: z-faces -> {ok_z} ({how_z})')
-    print(f'fused eligibility: x-faces -> {ok_x} '
-          f'(blocked: {how_x[:120]})')
 
 
 if __name__ == '__main__':

@@ -1,7 +1,7 @@
-"""sailfish_tpu: a TPU-native lattice-Boltzmann CFD framework.
+"""sailfish_tpu: a JAX lattice-Boltzmann CFD framework.
 
-A ground-up JAX/XLA/Pallas rebuild with the scene/state API of
-sailfish-team/sailfish (reference mounted at /root/reference): LBSim
+A ground-up JAX/XLA rebuild with the scene/state API of
+sailfish-team/sailfish: LBSim
 subclasses + Subdomain geometry + node_type boundary conditions drive a
 fused collide-and-propagate step over (optionally mesh-sharded) device
 arrays instead of runtime-generated CUDA kernels.

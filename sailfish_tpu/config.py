@@ -2,7 +2,7 @@
 
 Counterpart of the reference's ``sailfish/config.py`` (LBConfig :17,
 LBConfigParser.parse :59 with /etc/sailfishrc -> ~/.sailfishrc ->
-./.sailfishrc chain, MachineSpec :94). The TPU build keeps the same
+./.sailfishrc chain, MachineSpec :94). This build keeps the same
 override order: rc files -> class update_defaults -> script default_config
 -> command line (reference controller.py:466-472).
 """
@@ -91,7 +91,7 @@ class LBConfigParser:
 
 class MachineSpec:
     """Declaration of a machine in a (historical) cluster layout
-    (reference config.py:94-134). Retained for API compatibility; the TPU
+    (reference config.py:94-134). Retained for API compatibility; the
     runtime derives its topology from jax.devices() / jax.distributed
     instead of SSH host lists."""
 

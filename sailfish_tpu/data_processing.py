@@ -1,7 +1,7 @@
 """Generic on-device data processing: axis reductions, product
 statistics, and slice extraction over macroscopic fields.
 
-TPU-native counterpart of the reference's
+Counterpart of the reference's
 ``templates/data_processing.mako`` reduction-kernel generator
 (``reduction`` :318, ``stats_global`` :489): where the reference renders
 a bespoke CUDA kernel per statistic, here a statistic is a traced JAX

@@ -1,6 +1,6 @@
 """Equilibrium distributions and macroscopic moments as traced JAX functions.
 
-TPU-native counterpart of the reference's sympy expression builders
+Counterpart of the reference's sympy expression builders
 (``sailfish/sym_equilibrium.py:90`` bgk_equilibrium, ``sailfish/sym.py:573,629``
 ex_rho/ex_velocity). Everything here is shape-polymorphic vectorized jnp math:
 distributions have shape (Q, *spatial), macroscopic fields (*spatial) or
@@ -8,8 +8,8 @@ distributions have shape (Q, *spatial), macroscopic fields (*spatial) or
 
 Because all basis-vector components are in {-1, 0, 1}, the Q-axis
 contractions are emitted as unrolled adds/subtracts rather than matmuls:
-exact in fp32 (no bf16 MXU pass), and XLA fuses them into the surrounding
-elementwise work on the VPU.
+exact in fp32 (no reduced-precision matrix unit pass), and XLA fuses them
+into the surrounding elementwise work.
 """
 
 from __future__ import annotations

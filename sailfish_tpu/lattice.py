@@ -1,9 +1,9 @@
 """Lattice (DxQy) definitions: basis vectors, weights, opposites, moment matrices.
 
-TPU-native counterpart of the reference's symbolic grid layer
+Counterpart of the reference's symbolic grid layer
 (``sailfish/sym.py:61-466`` defines D2Q9/D3Q13/D3Q15/D3Q19/D3Q27 with sympy).
 Here every lattice is a set of precomputed numpy constant tables consumed
-directly by traced JAX functions and Pallas kernels -- there is no runtime
+directly by traced JAX functions -- there is no runtime
 code generation and no sympy in the hot path.
 
 Conventions:

@@ -96,7 +96,7 @@ class LBSim:
         """Register a per-iteration DEVICE hook: ``fn(f, state, it) ->
         state`` is traced into the jitted main loop and runs after every
         single step, with ``state`` a device pytree initialized to
-        ``init_state``. This is the TPU-native replacement for
+        ``init_state``. This is the device-side replacement for
         per-iteration after_step sampling (e.g. Reynolds statistics): no
         host sync, no chunking distortion. Current states are available
         as runner.device_hook_state (tuple, one entry per hook).

@@ -98,11 +98,14 @@ class LBFluidSim(LBSim):
         return {'rho': self.rho, 'v': self.velocity_components()}
 
     def make_initial_state(self, builder, dtype):
-        """Initial device state: equilibrium at the user-set (rho, u)."""
+        """Initial device state: equilibrium at the user-set (rho, u),
+        jitted so that no (Q, N) temporaries outlive the fused
+        evaluation (a card-filling domain has room for one)."""
+        import jax
         import jax.numpy as jnp
         rho = jnp.asarray(self.rho, dtype=dtype)
         u = jnp.asarray(np.stack(self.velocity_components()), dtype=dtype)
-        return builder.feq(rho, u)
+        return jax.jit(builder.feq)(rho, u)
 
     def update_host_fields(self, macro):
         """Copy device macro fields into the host-side numpy arrays."""

@@ -1,6 +1,6 @@
 """Collision operators as traced JAX functions.
 
-TPU-native counterpart of the reference's generated relaxation kernels
+Counterpart of the reference's generated relaxation kernels
 (``templates/relaxation.mako:99-181`` BGK, ``relaxation_mrt.mako`` MRT,
 ``relaxation_common.mako:153`` Smagorinsky, ``:56-108`` Guo/EDM forces).
 

@@ -106,11 +106,8 @@ def alpha_newton(grid, f, fneq, alpha0, iters=20, entropy_tol=1e-6,
     threshold) the entropy/positivity prologue and the loop are
     bypassed entirely."""
     if skip is not None:
-        # measured on v5e (benchmark/results/README.md, ELBM cost
-        # ladder): branching around the whole solve beats entering a
-        # zero-iteration while_loop by ~4% -- but most of the ELBM
-        # deficit is the REGISTER PRESSURE of this body merely
-        # existing in the kernel, not its execution
+        # branch around the whole solve when every node is skipped
+        # rather than enter a zero-iteration while_loop
         return jax.lax.cond(
             jnp.all(skip), lambda: alpha0,
             lambda: _alpha_newton_loop(grid, f, fneq, alpha0, iters,

@@ -1,21 +1,20 @@
 """Mixed-precision storage: int16 fixed-point distributions, fp32 math.
 
-``--precision=mixed`` halves the HBM bytes of the streaming-bound fused
-kernels (the entire cost of an LBM step) by storing each distribution as
-a 16-bit fixed-point code of its normalized deviation from rest,
+``--precision=mixed`` rounds each distribution, every step, to a 16-bit
+fixed-point code of its normalized deviation from rest,
 
     q_i = round((f_i / w_i - 1) / s),   s = mixed_range / 32767,
 
 while every arithmetic operation -- moments, equilibrium, collision,
 boundary conditions -- runs in fp32 on dequantized values. This is the
-TPU counterpart of the FP16S compressed-storage technique of Lehmann et
+counterpart of the FP16S compressed-storage technique of Lehmann et
 al., "Accuracy and performance of the lattice Boltzmann method with
 64-bit, 32-bit and customized 16-bit floating point precision", Phys.
 Rev. E 106 (2022): like their equilibrium-shifted fp16, precision is
 spent on the hydrodynamically active deviation instead of the constant
-rest weight. Fixed point beats fp16 here twice over: the v5e VPU/Mosaic
-stack has no fp16 vector path (bf16's 8 mantissa bits measurably corrupt
-transport -- a shear-decay viscosity test misses by ~35%), and for a
+rest weight. Fixed point beats 16-bit floats here (bf16's 8 mantissa
+bits measurably corrupt transport -- a shear-decay viscosity test misses
+by ~35%): for a
 deviation bounded by ``mixed_range`` the int16 grid gives a UNIFORM
 absolute error of s/2 ~ 7.6e-6, i.e. ~15 significant bits at full
 amplitude (measured shear-decay viscosity error: 0.5% at u=0.01 where
@@ -27,9 +26,8 @@ Exactness contract (what makes the mode testable and chunk-safe):
     under 1e-3 of one quantization step for every lattice weight, so
     the re-rounded code is unchanged. State can round-trip through the
     public fp32 layout (chunk boundaries, checkpoints, output) with no
-    drift, and the XLA engine's per-step quantization wrapper
-    (StepBuilder.build with storage='int16') is bit-identical to the
-    Pallas kernel's in-register quantization.
+    drift: the per-step quantization wrapper (StepBuilder.build with
+    storage='int16') is bit-identical to an int16 carry.
   * Saturation: deviations beyond ``mixed_range`` clip. The default
     range 0.5 covers |f/w - 1| up to 0.5 -- ample for lattice Mach
     numbers through ~0.1 with O(5%) density variation; raise
@@ -37,9 +35,11 @@ Exactness contract (what makes the mode testable and chunk-safe):
     bit of precision).
 
 The reference has no counterpart (its precision axis is
-single/double, codegen.py:19-29); this mode exists because the TPU
-kernels are HBM-streaming-bound, so 16-bit storage is a direct ~2x on
-the speed-of-light itself.
+single/double, codegen.py:19-29). The step is bound by memory bandwidth,
+so an int16 carry would halve its bytes; but the step as built here
+keeps the carry in fp32 (StepBuilder.build quantizes and dequantizes in
+the same step), so today the mode changes the numerics and not the
+bytes moved.
 """
 
 from __future__ import annotations

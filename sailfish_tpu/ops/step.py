@@ -1,20 +1,20 @@
 """The fused stream-and-collide step as a traced JAX function.
 
-TPU-native counterpart of the reference's generated CollideAndPropagate
-kernel (``templates/models/lb_single_fluid.mako:161-229``: getDist ->
+Counterpart of the reference's generated CollideAndPropagate kernel
+(``templates/models/lb_single_fluid.mako:161-229``: getDist ->
 fixMissingDistributions -> getMacro -> precollisionBoundaryConditions ->
 relaxate -> propagate). There is no runtime codegen: a ``StepBuilder``
 specializes a jittable python function at trace time using the *static*
 set of node types / orientations present in the scene, so only the BC
-branches actually used are materialized, as dense masked selects (TPUs
-prefer masking over divergent branching).
+branches actually used are materialized, as dense masked selects that
+XLA fuses into the streaming pass.
 
 Update ordering: the state array holds POST-COLLISION distributions; one
 step is  gather (pull streaming) -> fix missing -> macro -> BC -> collide.
 This is the same operation sequence as the reference kernel, observed half
 a cycle later, and it makes the hot loop a single gather-compute pass:
 every f_i is read once (from the shifted neighbor), collided once, and
-written once -- the shape both XLA fusion and the Pallas kernel want.
+written once -- the shape XLA's loop fusion wants.
 Periodic wrap is the natural semantics of jnp.roll; non-periodic domain
 edges must be covered by boundary nodes (same contract as the reference's
 ghost layer).
@@ -222,9 +222,6 @@ class StepBuilder:
         # Coordinate arrays for space-dependent DynamicValues are built
         # eagerly (outside any trace -- caching trace-time constants leaks
         # tracers) and only when some expression actually needs them.
-        # Window sub-builders preset _coords_np with GLOBAL coordinates
-        # sliced to their box; rebuilding from the window shape would hand
-        # user callbacks window-local indices.
         # Body forces may be DynamicValues too (reference lb_base.py
         # :346-352): keep the expressions and evaluate them on device at
         # each step's iteration index instead of baking a constant.
@@ -243,20 +240,16 @@ class StepBuilder:
         if any(nt.DynamicValue.arity(e) > 1
                for _, _, exprs in m.dynamic for e in exprs) or \
                 any(nt.DynamicValue.arity(e) > 1 for e in force_exprs):
-            coords_np = getattr(self, '_coords_np', None)
-            if coords_np is None:
-                coords_np = global_coord_arrays(m.type_map.shape)
             self._coords_cache = tuple(
-                jnp.asarray(c, dtype=jnp.int32) for c in coords_np)
+                jnp.asarray(c, dtype=jnp.int32)
+                for c in global_coord_arrays(m.type_map.shape))
 
         # NTExtendedCopy: static gather maps (reference boundary.mako
         # :525-566, sym.rotate_pos/rotate_dist). For each missing dist d at
         # a node x, read f_{d'}(T x - c_{d'}) where d' is d's direction
-        # rotated by the 4x4 affine transformation T. Whole-domain builders
-        # only (the engine selector keeps such scenes on the XLA path).
+        # rotated by the 4x4 affine transformation T.
         self.ext_gathers = []
-        if getattr(m, 'extended', None) and \
-                not getattr(self, '_is_window', False):
+        if getattr(m, 'extended', None):
             self._build_extended_copy_gathers()
 
         if self.body_force is not None and self.force_expr is None:
@@ -368,71 +361,16 @@ class StepBuilder:
         g = self.grid
         return jnp.stack([pull(f[i], g.basis[i]) for i in range(g.Q)])
 
-    def for_window(self, box, flatten=False):
-        """A StepBuilder specialized to a spatial sub-box (tuple of python
-        slices over the spatial axes). Used by the Pallas path to run the
-        exact BC machinery on thin boundary slabs only.
-
-        With ``flatten=True`` the window's spatial axes are collapsed to a
-        single node axis: everything downstream of the streaming gathers is
-        elementwise, and thin slabs (e.g. a 4-wide x face) would otherwise
-        put a tiny axis in the TPU lane dimension, wasting >20x of every
-        vector op on padding."""
-        from copy import copy
-        sub = object.__new__(StepBuilder)
-        sub.__dict__.update({k: v for k, v in self.__dict__.items()
-                             if k not in ('maps', 'dev', 'bc_masks_dev',
-                                          'wet_np', 'fullbb_np', 'halfbb_np',
-                                          'slip_np', 'tms_np',
-                                          'bc_instances', 'force_dev',
-                                          'ext_gathers', '_coords_cache',
-                                          '_coords_np')})
-        m = copy(self.maps)
-        m.type_map = self.maps.type_map[box]
-        m.orientation = self.maps.orientation[box]
-        m.link_tags = self.maps.link_tags[box]
-        m.param_rho = self.maps.param_rho[box]
-        m.param_vel = self.maps.param_vel[(slice(None),) + box]
-        m.param_scalar = self.maps.param_scalar[box]
-        m.dynamic = [(mask[box], name, exprs)
-                     for mask, name, exprs in self.maps.dynamic]
-        m.extended = [(mask[box], T)
-                      for mask, T in getattr(self.maps, 'extended', [])]
-        # GLOBAL coordinates of the window's nodes (a sub-builder must hand
-        # user DynamicValue callbacks the same hx/hy/hz it would see in the
-        # whole-domain step, not window-local indices).
-        coords = [c[box] for c in global_coord_arrays(
-            self.maps.type_map.shape)]
-        if flatten:
-            m.type_map = m.type_map.reshape(-1)
-            m.orientation = m.orientation.reshape(-1)
-            m.link_tags = m.link_tags.reshape(-1)
-            m.param_rho = m.param_rho.reshape(-1)
-            m.param_vel = m.param_vel.reshape(self.grid.dim, -1)
-            m.param_scalar = m.param_scalar.reshape(-1)
-            m.dynamic = [(mask.reshape(-1), name, exprs)
-                         for mask, name, exprs in m.dynamic]
-            m.extended = [(mask.reshape(-1), T) for mask, T in m.extended]
-            coords = [c.reshape(-1) for c in coords]
-        sub.maps = m
-        sub.body_force = self.body_force
-        sub._is_window = True
-        sub._coords_np = tuple(coords)
-        sub._prepare_static()
-        return sub
-
-    def fix_missing(self, fs, f, sampler=None):
+    def fix_missing(self, fs, f):
         """Replace distributions whose pull source was not a wet node
         (reference: fixMissingDistributions, kernel_common.mako + link
         tags, boundary.mako:391-416). ``f`` is the current (post-collision)
-        state, used for local bounce-back replacements. ``sampler(vec)``
-        returns the (Q, *S) state sampled at x+vec; defaults to sampling
-        ``f`` with periodic wrap (window sub-builders pass a globally
-        correct sampler)."""
+        state, used for local bounce-back replacements."""
         g = self.grid
-        if sampler is None:
-            def sampler(vec):
-                return jnp.stack([sample(f[i], vec) for i in range(g.Q)])
+
+        def sampler(vec):
+            """The (Q, *S) state sampled at x+vec, periodic wrap."""
+            return jnp.stack([sample(f[i], vec) for i in range(g.Q)])
         if self.halfbb_np is not None:
             tags = self.dev['tags']
             fixed = []
@@ -456,8 +394,7 @@ class StepBuilder:
             self._tms_tg = (tg_rho, tg_u)
         if self.ext_gathers:
             # NTExtendedCopy: statically-indexed gathers from the rotated
-            # source positions (small boundary-sized scatters; XLA engine
-            # only).
+            # source positions (small boundary-sized scatters).
             flat = fs.reshape(g.Q, -1)
             f_flat = f.reshape(g.Q, -1)
             for d, d2, dst, src in self.ext_gathers:
@@ -780,7 +717,7 @@ class StepBuilder:
         corr = self.feq(tg_rho, tg_u) - self.feq(rho, u)
         return jnp.where(self.dev['tms'][None], fpost + corr, fpost)
 
-    def _guo_density_overlay(self, fs, fpost, params, sampler=None):
+    def _guo_density_overlay(self, fs, fpost, params):
         """Guo's extrapolation density BC (reference relaxation.mako
         :134-175): the boundary node O with inward normal n takes
         f_post(O) = feq(rho_bc, u_B) + (1 - 1/tau) f^neq(B) where B = O+n
@@ -794,11 +731,7 @@ class StepBuilder:
         rho_bc_eff = params[0]
         for tid, k, mask in insts:
             n = np.asarray(g.orientation_vectors[k - 1])
-            if sampler is None:
-                fsB = sample(fs, n)  # fs_i(x+n), shared periodic shift
-            else:
-                fsB = jnp.stack([sampler(n - g.basis[i])[i]
-                                 for i in range(g.Q)])
+            fsB = sample(fs, n)  # fs_i(x+n), shared periodic shift
             rhoB, uB = eq.macroscopic(g, fsB)
             feqB = self.feq(rhoB, uB)
             val = self.feq(rho_bc_eff, uB) + \
@@ -806,12 +739,11 @@ class StepBuilder:
             fpost = jnp.where(mask[None], val, fpost)
         return fpost
 
-    def phases(self, fs, f, it=0, sampler=None):
-        """The canonical post-gather phase sequence (shared by the XLA
-        step and the Pallas boundary-patch path): fix missing -> macro ->
-        BC solves -> pre-collision BC -> collide -> dry/post handling ->
-        TMS/Guo overlays."""
-        fs = self.fix_missing(fs, f, sampler)
+    def phases(self, fs, f, it=0):
+        """The canonical post-gather phase sequence: fix missing -> macro
+        -> BC solves -> pre-collision BC -> collide -> dry/post handling
+        -> TMS/Guo overlays."""
+        fs = self.fix_missing(fs, f)
         rho, u = eq.macroscopic(self.grid, fs)
         params = self.bc_params(it)
         rho, u = self._solve_macro_bc(fs, rho, u, params)
@@ -821,7 +753,7 @@ class StepBuilder:
             fpost = jnp.where(self.dev['wet'][None], fpost, fs2)
         fpost = self._post_collision(fs2, fpost)
         fpost = self._apply_tms(fpost, rho, u)
-        fpost = self._guo_density_overlay(fs, fpost, params, sampler)
+        fpost = self._guo_density_overlay(fs, fpost, params)
         return fpost
 
     # -- public --------------------------------------------------------------

@@ -1,16 +1,16 @@
 """Device mesh construction and domain sharding.
 
-TPU-native replacement for the reference's multi-process communication
+Replacement for the reference's multi-process communication
 stack (``sailfish/master.py``, ``connector.py``, ``socketserver.py``: one
 process per GPU + ZeroMQ ghost exchange + execnet bootstrap). Here the
 domain is a single jit-global array sharded over a ``jax.sharding.Mesh``;
 XLA's SPMD partitioner turns the streaming shifts into collective permutes
-over ICI, replacing collect/distribute kernels, port negotiation and zmq
+(NCCL on GPUs), replacing collect/distribute kernels, port negotiation and zmq
 entirely (SURVEY.md section 2.6).
 
 Axis convention: spatial array axes are (z, y, x) with x innermost; mesh
-axes are named after the spatial axes they shard. We shard outer axes
-first ('z' then 'y') keeping x contiguous for lane alignment.
+axes are named after the spatial axes they shard. Outer axes are sharded
+first ('z' then 'y'), so each shard's x rows stay contiguous.
 """
 
 from __future__ import annotations
@@ -23,8 +23,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 def parse_mesh_shape(mesh_str, dim, n_devices=None):
     """'4' -> (4,); '2x2' -> (2, 2); '' -> None. Shapes are listed
-    outer-to-inner over spatial axes (z, y, x) in 3D / (y, x) in 2D;
-    3-axis 3D meshes take the exact GSPMD path (no fused kernel)."""
+    outer-to-inner over spatial axes (z, y, x) in 3D / (y, x) in 2D."""
     if not mesh_str:
         return None
     shape = tuple(int(p) for p in mesh_str.lower().split('x'))
@@ -50,10 +49,7 @@ def make_mesh(shape, dim, devices=None):
 
 
 def _axis_names(dim):
-    """Mesh axis names outer-to-inner. The fused engine shards at most
-    two axes (x stays contiguous in 3D for lane alignment); a 3-axis
-    3D mesh runs on the exact GSPMD/XLA path (the runner warns) --
-    see doc/distributed.md's 3-axis decision note."""
+    """Mesh axis names outer-to-inner."""
     return ('z', 'y', 'x') if dim == 3 else ('y', 'x')
 
 

@@ -1,10 +1,10 @@
 """Per-phase timing (counterpart of sailfish/profile.py TimeProfile :11).
 
 The reference brackets 8 GPU phases with CUDA events and 5 CPU phases
-with decorators (profile.py:122-168). The TPU hot loop is a single fused
-device program, so the phase set collapses to: device compute (per chunk),
-host sync (device->host field transfer), output writing, checkpointing,
-and boundary-patch prologue time is folded into compute. MLUPS_total vs
+with decorators (profile.py:122-168). Here the hot loop is a single
+jitted device program, so the phase set collapses to: device compute (per
+chunk), host sync (device->host field transfer), output writing and
+checkpointing; boundary-condition work is folded into compute. MLUPS_total vs
 MLUPS_comp (controller.py:740-765) maps to including vs excluding the
 host-side phases.
 """

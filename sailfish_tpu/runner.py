@@ -1,12 +1,12 @@
 """Simulation runner: owns device state, the jitted step, and the main loop.
 
 Counterpart of the reference's ``sailfish/subdomain_runner.py`` (:45 class,
-:1537 run, :1668 main, :960 step). The TPU design collapses the reference's
-process-per-GPU + two-stream + zmq machinery into one JAX process: the
-whole domain lives in (optionally sharded) device arrays, the inner loop is
-a jitted ``lax.fori_loop`` over collide-and-propagate steps (no host sync
-between outputs), and multi-chip halo exchange is compiler-scheduled
-(parallel/ shard_map wrapper).
+:1537 run, :1668 main, :960 step). One JAX process replaces the reference's
+process-per-GPU + two-stream + zmq machinery: the whole domain lives in
+(optionally sharded) device arrays, the inner loop is a jitted
+``lax.fori_loop`` over collide-and-propagate steps with donated buffers (no
+host sync between outputs), and on a mesh XLA's SPMD partitioner turns the
+streaming shifts into collective permutes (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,30 @@ from sailfish_tpu import io as sio
 from sailfish_tpu import util
 from sailfish_tpu.parallel import mesh as pmesh
 from sailfish_tpu.profile import TimeProfile
+
+
+def window_shifted(plane, window, shift):
+    """plane[window - shift] with periodic wrap, built from static slices
+    only (reads just the window-sized region). ``window``: python slices
+    per axis; ``shift``: source offset in array axis order."""
+    out = plane
+    for ax, (w, s) in enumerate(zip(window, shift)):
+        n = plane.shape[ax]
+        lo, hi = w.start - s, w.stop - s
+        idx = [slice(None)] * plane.ndim
+
+        def part(a, b):
+            idx2 = list(idx)
+            idx2[ax] = slice(a, b)
+            return out[tuple(idx2)]
+
+        if lo >= 0 and hi <= n:
+            out = part(lo, hi)
+        elif lo < 0:
+            out = jnp.concatenate([part(n + lo, n), part(0, hi)], axis=ax)
+        else:  # hi > n
+            out = jnp.concatenate([part(lo, n), part(0, hi - n)], axis=ax)
+    return out
 
 
 class SubdomainRunner:
@@ -77,8 +101,8 @@ class SubdomainRunner:
                 'Use --precision=single')
         self.f = self.sim.make_initial_state(self.builder, dtype)
         if getattr(self.builder, 'mixed', None) is not None:
-            # snap the initial state to the int16 grid once, so both
-            # engines (and any restart) iterate from identical codes
+            # snap the initial state to the int16 grid once, so every
+            # run (and any restart) iterates from identical codes
             mx = self.builder.mixed
             self.f = jax.jit(lambda a: mx.dequant(mx.quant(a)))(self.f)
         self.mesh = None
@@ -91,99 +115,16 @@ class SubdomainRunner:
                 lambda a: pmesh.shard_dists(a, self.mesh, self.sim.dim),
                 self.f)
             self.builder.shard_constants(self.mesh)
-        self.engine = self._select_engine(dtype)
-        if self.engine == 'pallas':
-            interp = jax.default_backend() == 'cpu'
-            from sailfish_tpu.ops.multigrid import (
-                FreeEnergyStepBuilder, ShanChenMultiStepBuilder)
-            try:
-                if isinstance(self.builder, ShanChenMultiStepBuilder):
-                    if self.mesh is not None and self.sim.dim == 3:
-                        from sailfish_tpu.parallel.halo_multi import \
-                            ShardedPallasSCMulti3D
-                        pstep = ShardedPallasSCMulti3D(
-                            self.builder, self._domain_shape(),
-                            self.mesh, interpret=interp)
-                    elif self.mesh is not None:
-                        from sailfish_tpu.parallel.halo_multi import \
-                            ShardedPallasSCMulti2D
-                        pstep = ShardedPallasSCMulti2D(
-                            self.builder, self._domain_shape(),
-                            self.mesh, interpret=interp)
-                    elif self.sim.dim == 3:
-                        from sailfish_tpu.ops.pallas_multi3d import \
-                            PallasStepSCMulti3D
-                        pstep = PallasStepSCMulti3D(
-                            self.builder, self._domain_shape(),
-                            interpret=interp)
-                    else:
-                        from sailfish_tpu.ops.pallas_multi2d import \
-                            PallasStepSCMulti2D
-                        pstep = PallasStepSCMulti2D(
-                            self.builder, self._domain_shape(),
-                            interpret=interp)
-                elif isinstance(self.builder, FreeEnergyStepBuilder):
-                    if self.mesh is not None and self.sim.dim == 3:
-                        from sailfish_tpu.parallel.halo_multi import \
-                            ShardedPallasFE3D
-                        pstep = ShardedPallasFE3D(
-                            self.builder, self._domain_shape(),
-                            self.mesh, interpret=interp)
-                    elif self.mesh is not None:
-                        from sailfish_tpu.parallel.halo_multi import \
-                            ShardedPallasFE2D
-                        pstep = ShardedPallasFE2D(
-                            self.builder, self._domain_shape(),
-                            self.mesh, interpret=interp)
-                    elif self.sim.dim == 3:
-                        from sailfish_tpu.ops.pallas_multi3d import \
-                            PallasStepFE3D
-                        pstep = PallasStepFE3D(
-                            self.builder, self._domain_shape(),
-                            interpret=interp)
-                    else:
-                        from sailfish_tpu.ops.pallas_multi2d import \
-                            PallasStepFE2D
-                        pstep = PallasStepFE2D(
-                            self.builder, self._domain_shape(),
-                            interpret=interp)
-                elif self.mesh is not None and self.sim.dim == 2:
-                    from sailfish_tpu.parallel.halo import \
-                        ShardedPallasStep2D
-                    pstep = ShardedPallasStep2D(
-                        self.builder, self._domain_shape(), self.mesh,
-                        interpret=interp)
-                elif self.mesh is not None:
-                    from sailfish_tpu.parallel.halo import \
-                        ShardedPallasStep3D
-                    pstep = ShardedPallasStep3D(
-                        self.builder, self._domain_shape(), self.mesh,
-                        interpret=interp)
-                elif self.sim.dim == 3:
-                    from sailfish_tpu.ops.pallas_step import PallasStep3D
-                    pstep = PallasStep3D(self.builder,
-                                         self._domain_shape(),
-                                         interpret=interp)
-                else:
-                    from sailfish_tpu.ops.pallas_step2d import PallasStep2D
-                    pstep = PallasStep2D(self.builder,
-                                         self._domain_shape(),
-                                         interpret=interp)
-            except NotImplementedError as e:
-                if getattr(self.config, 'engine', 'auto') == 'pallas':
-                    raise
-                util.get_logger(self.config).warning(
-                    'fused engine unavailable for this scene (%s); '
-                    'falling back to the XLA engine (typically 4-7x '
-                    'slower). Pass --engine=pallas to make this an '
-                    'error.', e)
-                self.engine = 'xla'
-        if self.engine == 'pallas':
-            self._pallas = pstep
-            self._step_fn = pstep.step
-        else:
-            self._pallas = None
-            self._step_fn = self.builder.build()
+        self._step_fn = self.builder.build()
+        self._step_loop = None    # a multi-step loop replacing fori_loop
+        self.step_kernel = 'xla'
+        if jax.default_backend() == 'gpu':
+            from sailfish_tpu.ops import fused_bgk
+            if not fused_bgk.unsupported(self.builder, self.mesh):
+                self._step_fn = fused_bgk.fused_step(self.builder)
+                self._step_loop = fused_bgk.fused_loop(self.builder)
+                self.step_kernel = 'fused_bgk'
+        util.get_logger(self.config).info('step: %s', self.step_kernel)
         self.device_hook_state = ()
         self._make_run_steps()
         self._macro = jax.jit(self.builder.macro_fields)
@@ -191,25 +132,18 @@ class SubdomainRunner:
     def _make_run_steps(self):
         """(Re)build the jitted multi-step loop, weaving in any device
         hooks registered via sim.add_device_hook (per-iteration sampling
-        inside the loop; the TPU replacement for the reference's per-step
+        inside the loop; the replacement for the reference's per-step
         after_step calls, subdomain_runner.py:1738-1743)."""
         step = self._step_fn
-        # tile-padded kernels grow the state once per chunk
-        p = getattr(self, '_pallas', None)
-        pad = crop = None
-        if p is not None and getattr(p, 'padded', False):
-            pad, crop = p.pad_state, p.crop_state
         hooks = getattr(self.sim, '_device_hooks', [])
         if not hooks:
-            @functools.partial(jax.jit, donate_argnums=0)
-            def run_steps(f, n, it0=0):
-                if pad is not None:
-                    f = pad(f)
-                f = jax.lax.fori_loop(
-                    0, n, lambda i, fc: step(fc, it0 + i), f)
-                return crop(f) if crop is not None else f
+            loop = self._step_loop
+            if loop is None:
+                def loop(f, n, it0=0):
+                    return jax.lax.fori_loop(
+                        0, n, lambda i, fc: step(fc, it0 + i), f)
 
-            self._run_steps = run_steps
+            self._run_steps = jax.jit(loop, donate_argnums=0)
             return
 
         fns = tuple(fn for _, fn, _e, _f in hooks)
@@ -220,27 +154,21 @@ class SubdomainRunner:
 
         @functools.partial(jax.jit, donate_argnums=(0, 1))
         def run_steps_hooked(f, states, n, it0=0):
-            if pad is not None:
-                f = pad(f)
-
             def body(i, val):
                 fc, sts = val
                 f2 = step(fc, it0 + i)
                 # hooks see the iteration count AFTER the step, matching
-                # sim.iteration at after_step time in the reference;
-                # they read the unpadded view
+                # sim.iteration at after_step time in the reference
                 it = it0 + i + 1
 
                 def run_hooks(sts):
-                    f2h = crop(f2) if crop is not None else f2
-                    return tuple(fn(f2h, s, it)
+                    return tuple(fn(f2, s, it)
                                  for fn, s in zip(fns, sts))
 
                 if all_strided:
-                    # every hook declared its stride: hoist the crop (a
-                    # full-state permute on the fused engines) and the
-                    # hook calls behind one cond on the OR of the
-                    # declared predicates
+                    # every hook declared its stride: hoist the hook
+                    # calls behind one cond on the OR of the declared
+                    # predicates
                     pred = None
                     for e, fi in strides:
                         p = (it >= fi) & (jnp.mod(it, e) == 0)
@@ -250,10 +178,7 @@ class SubdomainRunner:
                 else:
                     sts = run_hooks(sts)
                 return f2, sts
-            f, states = jax.lax.fori_loop(0, n, body, (f, states))
-            if crop is not None:
-                f = crop(f)
-            return f, states
+            return jax.lax.fori_loop(0, n, body, (f, states))
 
         def run_steps(f, n, it0=0):
             f, self.device_hook_state = run_steps_hooked(
@@ -261,162 +186,6 @@ class SubdomainRunner:
             return f
 
         self._run_steps = run_steps
-
-    def _select_engine(self, dtype):
-        """'pallas' = fused TPU kernel + XLA boundary patches; 'xla' =
-        fully traced step. The pallas bulk path covers 2D/3D
-        BGK/MRT/TRT/ELBM (+ LES-Smagorinsky) with uniform static body
-        forces under any --force_implementation (3D also z / ('z','y')
-        meshes, 2D y / x / ('y','x')) in fp32; everything else uses the
-        XLA engine (which is always the reference implementation for
-        equivalence tests)."""
-        cfg = self.config
-        choice = getattr(cfg, 'engine', 'auto')
-        b = self.builder
-        import sailfish_tpu.node_type as snt
-        from sailfish_tpu.ops.multigrid import (
-            FreeEnergyStepBuilder, ShanChenMultiStepBuilder)
-        from sailfish_tpu.ops.step import StepBuilder
-
-        def _why(reasons):
-            """One line naming why the fused path is off (the
-            eligibility cliff is 4-7x; never leave it silent)."""
-            return '; '.join(reasons)
-
-        if isinstance(b, (ShanChenMultiStepBuilder,
-                          FreeEnergyStepBuilder)):
-            # K-component models: fused 2D/3D kernels; meshes are
-            # supported for 3D z-sharding (parallel.halo_multi)
-            reasons = []
-            if self.sim.dim not in (2, 3):
-                reasons.append(f'dim={self.sim.dim}')
-            if self.mesh is not None:
-                axes = list(self.mesh.axis_names)
-                mesh_ok = (
-                    (self.sim.dim == 3
-                     and axes in (['z'], ['z', 'y']))
-                    or (self.sim.dim == 2
-                        and axes in (['y'], ['x'], ['y', 'x'])))
-                if not mesh_ok:
-                    reasons.append(
-                        "multi-component scenes shard fused on 3D "
-                        "z / ('z','y') and 2D y / x / ('y','x') "
-                        f'meshes only; got {axes}')
-            if dtype != jnp.float32:
-                reasons.append('fp32 only')
-            eligible = not reasons
-            if choice == 'xla':
-                return 'xla'
-            if choice == 'pallas':
-                if not eligible:
-                    raise ValueError(
-                        'pallas engine requested but this '
-                        'multi-component configuration is not '
-                        f'supported: {_why(reasons)}')
-                return 'pallas'
-            if jax.default_backend() == 'cpu':
-                return 'xla'
-            if not eligible:
-                util.get_logger(cfg).warning(
-                    'fused engine unavailable for this scene (%s); '
-                    'falling back to the XLA engine (typically 4-7x '
-                    'slower). Pass --engine=pallas to make this an '
-                    'error.', _why(reasons))
-                return 'xla'
-            return 'pallas'
-        reasons = []
-        if type(b) is not StepBuilder:
-            reasons.append(f'{type(b).__name__} scenes')
-        if self.sim.dim not in (2, 3):
-            reasons.append(f'dim={self.sim.dim}')
-        if not (self.mesh is None or
-                (self.sim.dim == 3
-                 and list(self.mesh.axis_names) in (['z'], ['z', 'y']))
-                or (self.sim.dim == 2
-                    and list(self.mesh.axis_names)
-                    in (['y'], ['x'], ['y', 'x']))):
-            reasons.append(
-                "the fused kernel shards 3D z / ('z','y') and 2D "
-                "y / x / ('y','x') meshes only "
-                f'(got {list(self.mesh.axis_names)})')
-        # the builder-shape checks only apply to plain StepBuilders
-        # (a coupled/derived builder type is itself the blocker and
-        # was reported above; don't poke at attributes it lacks)
-        if type(b) is StepBuilder:
-            # the ExtendedCopy gather needs the full global state; the
-            # Pallas patch path hands sub-builders window-local arrays
-            if snt.NTExtendedCopy.id in b.maps.present_types:
-                reasons.append('ExtendedCopy nodes')
-            if dtype != jnp.float32:
-                reasons.append('fp32 only')
-            if b.model not in ('bgk', 'mrt', 'trt', 'elbm'):
-                reasons.append(f'model={b.model}')
-            # single-component Shan-Chen: in-kernel psi forcing, BGK;
-            # sharded via the emission+edge-fixup path
-            if b.sc_coupling != 0.0:
-                if b.model != 'bgk':
-                    reasons.append('Shan-Chen is fused for BGK only')
-                if b.body_force is not None and b.force_model != 'guo':
-                    reasons.append(
-                        'Shan-Chen + body force is fused for the Guo '
-                        'force implementation only')
-                if b.force_expr is not None:
-                    reasons.append('Shan-Chen + dynamic body force')
-                if not (self.mesh is None or
-                        (self.sim.dim == 3
-                         and list(self.mesh.axis_names)
-                         in (['z'], ['z', 'y']))
-                        or (self.sim.dim == 2
-                            and list(self.mesh.axis_names)
-                            in (['y'], ['x'], ['y', 'x']))):
-                    reasons.append(
-                        "Shan-Chen shards fused on 3D z / ('z','y') "
-                        "meshes or 2D y / x / ('y','x') meshes only")
-            if b.equilibrium not in ('bgk', 'shallow_water'):
-                reasons.append(f'equilibrium={b.equilibrium}')
-            elif b.equilibrium == 'shallow_water':
-                if b.model != 'bgk':
-                    reasons.append('shallow-water equilibrium is '
-                                   'fused for BGK collision only')
-                if b.body_force is not None and b.force_model == 'edm':
-                    # ops/collide.edm_shift evaluates the BGK feq
-                    # regardless of the model equilibrium; keep the
-                    # combination on the reference engine
-                    reasons.append('shallow water + EDM forcing')
-            if b.body_force is not None and not (
-                    b.force_expr is None
-                    and np.asarray(b.body_force).ndim == 1):
-                # dynamic forces: time-only uniform DynamicValues ride
-                # a per-step SMEM operand into the fused kernel (single
-                # device); space-varying ones stay on the XLA engine
-                from sailfish_tpu.ops.pallas_step import \
-                    rt_force_eligible
-                if b.force_expr is None or not rt_force_eligible(b):
-                    reasons.append('space-varying body force')
-                elif self.mesh is not None:
-                    reasons.append('time-dependent body forces are '
-                                   'fused on single devices only')
-        eligible = not reasons
-        if choice == 'xla':
-            return 'xla'
-        if choice == 'pallas':
-            if not eligible:
-                raise ValueError(
-                    'pallas engine requested but this configuration '
-                    f'is not supported: {_why(reasons)}')
-            return 'pallas'
-        # auto: use the fused kernel on real accelerators only (on CPU
-        # it would run in the slow interpreter).
-        if jax.default_backend() == 'cpu':
-            return 'xla'
-        if not eligible:
-            util.get_logger(cfg).warning(
-                'fused engine unavailable for this scene (%s); '
-                'falling back to the XLA engine (typically 4-7x '
-                'slower). Pass --engine=pallas to make this an '
-                'error.', _why(reasons))
-            return 'xla'
-        return 'pallas'
 
     # -- force objects (momentum exchange) -----------------------------------
 
@@ -432,7 +201,6 @@ class SubdomainRunner:
             self._force_obj_fn = None
             return
         import sailfish_tpu.node_type as nt
-        from sailfish_tpu.ops.pallas_step import window_shifted
         g = self.sim.grid
         m = self.maps
         dim = self.sim.dim
@@ -686,7 +454,7 @@ class SubdomainRunner:
         mlups_history = []
         if cfg.check_invalid_results_gpu:
             # device-side NaN/Inf gate, evaluated once per chunk (the
-            # TPU analog of the reference's in-kernel check,
+            # analog of the reference's in-kernel check,
             # kernel_common.mako:203-211, at chunk granularity)
             @jax.jit
             def _check_finite(f):

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's ``sailfish/stats.py`` (KineticEnergyEnstrophy
 MixIn :16, ReynoldsStatsMixIn :56) and its generated reduction kernels
-(templates/data_processing.mako). On TPU the reductions are jitted jnp
+(templates/data_processing.mako). Here the reductions are jitted jnp
 expressions over the device-resident state -- no custom kernel plumbing.
 """
 
@@ -82,7 +82,7 @@ class ReynoldsStatsMixIn(FlowStatsMixIn):
     Two accumulation modes:
       * DEVICE (default when ``every`` is given): a per-iteration device
         hook accumulates inside the jitted main loop, so sampling cadence
-        is independent of the host chunk size (cfg.every) -- the TPU
+        is independent of the host chunk size (cfg.every) -- the
         equivalent of the reference's on-GPU ring buffer.
       * host: call ``collect_reynolds_stats(runner)`` from after_step
         (the reference's explicit API), accumulating on the host.

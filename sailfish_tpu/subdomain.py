@@ -8,7 +8,7 @@ Subdomain2D/3D and override ``boundary_conditions(hx, hy[, hz])`` and
 
 All construction is host-side numpy preprocessing. The output is a set of
 dense per-node arrays (type id, orientation, link-tag bitmask, parameter
-fields) that the TPU step consumes as packed data -- the one reference
+fields) that the step consumes as packed data -- the one reference
 design we deliberately mirror, since it is a data format, not an
 architecture (cf. geo_encoder.py:365-382).
 """
@@ -23,7 +23,7 @@ from sailfish_tpu import node_type as nt
 class SubdomainSpec:
     """A box in the global lattice (reference subdomain.py:32-304).
 
-    On TPU a spec maps to one shard of the device mesh rather than to a
+    Here a spec maps to one shard of the device mesh rather than to a
     process+GPU; the controller keeps the same (location, size) interface
     so geometry classes and cluster-era scripts keep working.
     """
@@ -347,7 +347,7 @@ class Subdomain:
 
     def select_subdomain(self, array, *coords):
         """Slice a global array down to this subdomain's extent
-        (reference subdomain.py select_subdomain). The TPU build keeps the
+        (reference subdomain.py select_subdomain). This build keeps the
         whole domain in one logical subdomain, so this slices by the spec
         location/size (identity for the default geometry)."""
         sl = []

@@ -1,5 +1,5 @@
 """Multi-host bootstrap hook (jax.distributed.initialize path; the
-TPU-native analog of the reference's execnet/PBS/LSF cluster startup,
+analog of the reference's execnet/PBS/LSF cluster startup,
 controller.py:496-658, util.py:92-128)."""
 import numpy as np
 
@@ -9,9 +9,9 @@ from sailfish_tpu import util
 def test_slurm_env_autodetect(monkeypatch):
     monkeypatch.setenv('SLURM_PROCID', '3')
     monkeypatch.setenv('SLURM_NTASKS', '16')
-    monkeypatch.setenv('SLURM_STEP_NODELIST', 'tpu-host[0-3],tpu-extra')
+    monkeypatch.setenv('SLURM_STEP_NODELIST', 'gpu-host[0-3],gpu-extra')
     coord, num, pid = util.cluster_env_spec()
-    assert coord == 'tpu-host0:8476'
+    assert coord == 'gpu-host0:8476'
     assert num == 16 and pid == 3
 
 

@@ -31,7 +31,7 @@ def test_sphere_drag_and_tracers():
 
     ctrl = LBSimulationController(FOSim, LBGeometry3D, default_config=dict(
         lat_nx=48, lat_ny=24, lat_nz=24, visc=0.05, max_iters=400,
-        every=400, quiet=True, engine='xla'))
+        every=400, quiet=True))
     ctrl.run(ignore_cmdline=True)
     r = ctrl._runner
     r.update_force_objects()

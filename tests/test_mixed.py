@@ -1,9 +1,8 @@
 """--precision=mixed: int16 fixed-point storage, fp32 math (ops/mixed.py).
 
-The reference has no counterpart (its precision axis is single/double);
-this mode halves the HBM bytes of the streaming-bound kernels. Gates:
-the quantization grid is exact under round-trips, both engines produce
-bit-identical trajectories, chunking does not leak extra rounding, and
+The reference has no counterpart (its precision axis is single/double).
+Gates: the quantization grid is exact under round-trips, sharded runs
+reproduce one device bitwise, chunking does not leak extra rounding, and
 transport physics survives 16-bit storage.
 """
 import sys
@@ -32,40 +31,17 @@ def test_quant_roundtrip_identity():
                 (name, i)
 
 
-@pytest.mark.slow
-def test_mixed_pallas_matches_xla_bitwise():
-    """LDC 3D (walls in-kernel mask + native-BC lid rows): the fused
-    kernel's in-register quantization must equal the XLA engine's
-    whole-state quantization BITWISE."""
-    from ldc_3d import LDCSim
-    from sailfish_tpu.controller import LBSimulationController
-
-    def run(engine):
-        ctrl = LBSimulationController(LDCSim, default_config=dict(
-            lat_nx=16, lat_ny=16, lat_nz=16, max_iters=12, every=12,
-            quiet=True, engine=engine, precision='mixed'))
-        ctrl.run(ignore_cmdline=True)
-        r = ctrl._runner
-        r._fields_to_host()
-        return np.asarray(r.f), np.array(r.sim.vx)
-
-    f_x, vx_x = run('xla')
-    f_p, vx_p = run('pallas')
-    assert np.array_equal(f_x, f_p)
-    assert np.array_equal(vx_x, vx_p)
-
-
-@pytest.mark.slow
 def test_mixed_chunk_independence():
-    """12 iterations in one chunk == 3 chunks of 4: pad/crop round-trips
-    through the public fp32 layout must not add rounding."""
+    """12 iterations in one chunk == 3 chunks of 4: chunk boundaries
+    round-trip the state through the public fp32 layout and must not add
+    rounding."""
     from ldc_3d import LDCSim
     from sailfish_tpu.controller import LBSimulationController
 
     def run(every):
         ctrl = LBSimulationController(LDCSim, default_config=dict(
             lat_nx=16, lat_ny=16, lat_nz=16, max_iters=12, every=every,
-            quiet=True, engine='pallas', precision='mixed'))
+            quiet=True, precision='mixed'))
         ctrl.run(ignore_cmdline=True)
         return np.asarray(ctrl._runner.f)
 
@@ -73,69 +49,26 @@ def test_mixed_chunk_independence():
 
 
 def test_mixed_sharded_two_axis_yx():
-    """('y','x')-sharded mixed stepping: ghost columns are dequantized
-    on the XLA side (dequant is exact fp32 either way), so the
-    x-sharded kernel composes with int16 storage. A flipped rounding
-    tie at the shard seam would shift one code (~1e-5 in u); gate at a
-    few steps."""
+    """('y','x')-sharded mixed stepping on the GSPMD path reproduces the
+    single-device trajectory bitwise: the per-step quantization is
+    elementwise, so sharding cannot move a rounding tie."""
     from taylor_green_2d import TaylorGreenSim
     from sailfish_tpu.controller import LBSimulationController
 
     def run(mesh):
         ctrl = LBSimulationController(TaylorGreenSim, default_config=dict(
             lat_nx=256, lat_ny=128, max_iters=16, every=16, visc=0.01,
-            quiet=True, mesh=mesh, engine='pallas', precision='mixed'))
+            quiet=True, mesh=mesh, precision='mixed'))
         ctrl.run(ignore_cmdline=True)
         r = ctrl._runner
         r._fields_to_host()
-        return r.engine, np.asarray(r.f), np.array(r.sim.vx)
+        return r.mesh, np.asarray(r.f), np.array(r.sim.vx)
 
     _, f_ref, vx_ref = run('')
-    engine, f, vx = run('2x2')
-    assert engine == 'pallas'
-    assert np.max(np.abs(vx - vx_ref)) < 1e-4
-    assert np.max(np.abs(f - f_ref)) < 1e-5
-
-
-@pytest.mark.slow
-def test_mixed_xla_patch_rows_match():
-    """A scene with a non-native outflow plane (NTCopy) exercises the
-    XLA compute_patch_plane path under mixed storage, alongside a
-    native inlet row and bounce-back walls."""
-    from sailfish_tpu.controller import LBSimulationController
-    from sailfish_tpu.models.single import LBFluidSim
-    from sailfish_tpu.node_type import (NTCopy, NTEquilibriumVelocity,
-                                        NTFullBBWall)
-    from sailfish_tpu.subdomain import Subdomain3D
-
-    class PipeSub(Subdomain3D):
-        def boundary_conditions(self, hx, hy, hz):
-            wall = (hy == 0) | (hy == self.gy - 1)
-            self.set_node(wall, NTFullBBWall)
-            inlet = (hz == 0) & ~wall
-            self.set_node(inlet,
-                          NTEquilibriumVelocity((0.0, 0.0, 0.02)))
-            outlet = (hz == self.gz - 1) & ~wall
-            self.set_node(outlet, NTCopy)
-
-        def initial_conditions(self, sim, hx, hy, hz):
-            sim.rho[:] = 1.0
-            sim.vz[:] = 0.02
-
-    class PipeSim(LBFluidSim):
-        subdomain = PipeSub
-
-    def run(engine):
-        ctrl = LBSimulationController(PipeSim, default_config=dict(
-            lat_nx=16, lat_ny=16, lat_nz=16, max_iters=10, every=10,
-            quiet=True, engine=engine, precision='mixed',
-            periodic_x=True))
-        ctrl.run(ignore_cmdline=True)
-        r = ctrl._runner
-        r._fields_to_host()
-        return np.asarray(r.f)
-
-    assert np.array_equal(run('xla'), run('pallas'))
+    mesh, f, vx = run('2x2')
+    assert mesh.axis_names == ('y', 'x')
+    assert np.array_equal(vx, vx_ref)
+    assert np.array_equal(f, f_ref)
 
 
 def test_mixed_viscosity_decay():
@@ -191,18 +124,16 @@ def test_mixed_rejects_unsupported():
                     sc_coupling=-5.0, storage='int16')
 
 
-@pytest.mark.slow
 def test_mixed_sharded_matches_single_device():
-    """z-sharded fused stepping under mixed storage: the int16 ghost
-    faces ppermuted over the ring must reproduce the single-device
-    trajectory bitwise (and the ICI face bytes halve for free)."""
+    """z-sharded stepping under mixed storage reproduces the
+    single-device trajectory bitwise."""
     from ldc_3d import LDCSim
     from sailfish_tpu.controller import LBSimulationController
 
     def run(mesh):
         ctrl = LBSimulationController(LDCSim, default_config=dict(
             lat_nx=16, lat_ny=16, lat_nz=16, max_iters=12, every=12,
-            quiet=True, engine='pallas', precision='mixed', mesh=mesh))
+            quiet=True, precision='mixed', mesh=mesh))
         ctrl.run(ignore_cmdline=True)
         r = ctrl._runner
         r._fields_to_host()
@@ -211,40 +142,16 @@ def test_mixed_sharded_matches_single_device():
     assert np.array_equal(run(''), run('4'))
 
 
-@pytest.mark.slow
-def test_mixed_2d_matches_xla_bitwise():
-    """2D fused kernel under mixed storage (LDC 2D: wall mask +
-    native-BC lid blocks) matches the XLA engine bitwise, and chunking
-    is free of extra rounding."""
-    from ldc_2d import LDCSim
-    from sailfish_tpu.controller import LBSimulationController
-
-    def run(engine, every):
-        ctrl = LBSimulationController(LDCSim, default_config=dict(
-            lat_nx=64, lat_ny=64, max_iters=12, every=every,
-            quiet=True, engine=engine, precision='mixed'))
-        ctrl.run(ignore_cmdline=True)
-        r = ctrl._runner
-        r._fields_to_host()
-        return np.asarray(r.f)
-
-    f_x = run('xla', 12)
-    f_p = run('pallas', 12)
-    assert np.array_equal(f_x, f_p)
-    assert np.array_equal(f_p, run('pallas', 4))
-
-
-@pytest.mark.slow
 def test_mixed_2d_sharded_matches_single_device():
-    """y-sharded 2D fused stepping under mixed storage: bitwise vs the
-    single-device kernel."""
+    """y-sharded 2D stepping under mixed storage: bitwise vs one
+    device."""
     from ldc_2d import LDCSim
     from sailfish_tpu.controller import LBSimulationController
 
     def run(mesh):
         ctrl = LBSimulationController(LDCSim, default_config=dict(
             lat_nx=64, lat_ny=256, max_iters=12, every=12,
-            quiet=True, engine='pallas', precision='mixed', mesh=mesh))
+            quiet=True, precision='mixed', mesh=mesh))
         ctrl.run(ignore_cmdline=True)
         r = ctrl._runner
         r._fields_to_host()

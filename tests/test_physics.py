@@ -47,7 +47,7 @@ def test_ldc_smoke_and_mass_conservation():
 
 @pytest.mark.parametrize('mesh', ['2', '4', '2x2'])
 def test_sharded_equivalence(mesh):
-    """N-device run must equal the 1-device run bitwise (fp32): the TPU
+    """N-device run must equal the 1-device run bitwise (fp32): the
     analog of the reference's multi-subdomain regtests
     (regtest/subdomains/2d_propagation.py)."""
     from ldc_2d import LDCSim
@@ -66,15 +66,12 @@ def test_sharded_equivalence(mesh):
 
 @pytest.mark.slow
 def test_sharded_equivalence_3d():
-    """2- and 3-axis GSPMD meshes match one device bitwise. The 3-axis
-    ('z','y','x') mesh has no fused kernel by design (the decision
-    note in doc/distributed.md) -- the exact XLA path covers it."""
+    """2- and 3-axis GSPMD meshes match one device bitwise."""
     from ldc_3d import LDCSim
 
     def run(m):
         ctrl = _run_controller(LDCSim, lat_nx=16, lat_ny=16, lat_nz=16,
-                               max_iters=60, every=60, quiet=True, mesh=m,
-                               engine='xla')
+                               max_iters=60, every=60, quiet=True, mesh=m)
         sim = ctrl._runner.sim
         return np.array(sim.rho), np.array(sim.vx), np.array(sim.vz)
 

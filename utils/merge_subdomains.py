@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Merge per-subdomain output files into global arrays.
 
-Counterpart of the reference's utils/merge_subdomains.py. The TPU build
+Counterpart of the reference's utils/merge_subdomains.py. This build
 writes one file per run (the mesh is transparent), so merging is usually a
 rename; this tool still reassembles multi-file outputs produced by
 location-annotated runs for compatibility with reference post-processing

@@ -9,7 +9,7 @@
 # is set; see runner._install_sighup_checkpoint).
 #
 # Counterpart of the reference's utils/pbs_checkpoint.sh -- there the
-# script had to scrape per-GPU runner PIDs out of the log; the TPU build
+# script had to scrape per-GPU runner PIDs out of the log; this build
 # is one process, so pass its PID directly (e.g. "$!" after launching
 # the simulation in the background). Supports PBS and SLURM walltime
 # queries.

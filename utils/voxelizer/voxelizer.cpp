@@ -1,6 +1,6 @@
 // STL -> dense numpy bool voxel array for sailfish_tpu geometry setup.
 //
-// TPU-native counterpart of the reference's cvmlcpp-based voxelizer
+// Counterpart of the reference's cvmlcpp-based voxelizer
 // (reference utils/voxelizer/voxelizer.cpp:1-92, io.hpp): same CLI and
 // on-disk formats (<base>.npy bool array + <base>.config JSON consumed by
 // sailfish_tpu.converter.CoordinateConverter), but implemented from
